@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 
 from ..data import synth
-from ..utils import tumio
+from ..utils import compile_cache, png, tumio
 
 # matplotlib's default color cycle, as used for sphere albedo in
 # RenderSpheres.m:82-87
@@ -111,17 +111,13 @@ def render_color_boxes(world, R, t, K, width, height,
 
 
 def write_png16(path, depth_m):
-    from PIL import Image
-
     mm = np.clip(np.round(np.asarray(depth_m) * 1000.0), 0, 65535).astype(np.uint16)
-    Image.fromarray(mm, mode="I;16").save(path)
+    png.write_png(path, mm)
 
 
 def write_png8(path, img):
-    from PIL import Image
-
     arr = np.clip(np.asarray(img) * 255.0, 0, 255).astype(np.uint8)
-    Image.fromarray(arr).save(path)
+    png.write_png(path, arr)
 
 
 def generate(out: str, frames: int = 90, seed: int = 0, width: int = 640,
@@ -228,6 +224,7 @@ def main(argv=None):
                         "faces, creases, and occlusion edges (the indoor-"
                         "scene feature set; data/synth.BoxWorld)")
     a = p.parse_args(argv)
+    compile_cache.enable()
     generate(a.out, a.frames, a.seed, a.width, a.height, noise=not a.no_noise,
              arc_deg=a.arc_deg, gray_texture=a.gray_texture, loop=a.loop,
              world_kind=a.world)

@@ -30,12 +30,12 @@ from ..data import loaders
 from ..models import color_upsampler, photo_ba, sharpness
 from ..models import tracker as tracker_mod
 from ..models.grad_sdf import GradSdfMap
-from ..utils import tumio
+from ..utils import compile_cache, tumio
 from ..utils.timer import Timer
 
 
 def build_parser():
-    p = argparse.ArgumentParser("photoba", description="photometric BA (TPU-native)")
+    p = argparse.ArgumentParser("photoba", description="photometric BA")
     p.add_argument("--input", required=True)
     p.add_argument("--results", default="./")
     p.add_argument("--first", type=int, default=0)
@@ -332,7 +332,9 @@ def run_photoba(args) -> dict:
 
 
 def main(argv=None):
-    run_photoba(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    compile_cache.enable()
+    return run_photoba(args)
 
 
 if __name__ == "__main__":

@@ -19,16 +19,15 @@ from typing import Optional
 class GridConfig:
     """Block-sparse voxel grid geometry + capacity.
 
-    TPU-native replacement for the reference's pointer-stable voxel hash map
+    Replacement for the reference's pointer-stable voxel hash map
     (`MapGradPixelSdf.h:65-68`): voxels live in 8x8x8 blocks stored as dense
-    SoA arrays in HBM; a dense block *directory* (dir_dim^3 int32 in HBM)
+    SoA arrays in device memory; a dense block *directory* (dir_dim^3 int32)
     maps block coordinates to block slots by arithmetic + one gather — no
-    hashing or probing (rationale: ops/voxel_grid.py module docstring and
-    PERF_NOTES.md).
+    hashing or probing (rationale: ops/voxel_grid.py module docstring).
     """
 
     voxel_size: float = 0.01          # --voxel-size default, main_scan_3d.cpp:75
-    block_shape: int = 8              # voxels per block edge (8^3 = 512 = 4 TPU lanes)
+    block_shape: int = 8              # voxels per block edge (8^3 = 512 voxels)
     num_blocks: int = 2 ** 14         # block capacity (16384 blocks = 8.4M voxels)
     dir_dim: int = 128                # directory edge; block coords in
     # [-dir_dim/2, dir_dim/2) -> world range +-(dir_dim/2 * 8 * voxel_size),
@@ -58,30 +57,21 @@ class FusionConfig:
     compact_chunk_rays: int = 16 * 1024  # fusion processes valid pixels in
     # compacted chunks of this many rays (adaptive work: cost scales with
     # the frame's valid-pixel count instead of H*W). 0 = disabled
-    # (single full-frame pass). Exact semantics either way. Measured
-    # (PERF_NOTES.md): cost ~ 0.69 ms/kray + ~1 ms/chunk fixed; 16k chunks
-    # beat 32k (less last-chunk padding) and 8k (fixed cost dominates) on
-    # the VGA bench scene.
+    # (single full-frame pass). Exact semantics either way. The chunk size
+    # trades last-chunk padding against per-chunk fixed cost; not yet
+    # measured on the H100.
     dedup_lookup: bool = False        # gather block slots only where the
     # key CHANGES along each ray's walk (consecutive samples share their
     # block ~4-5x; vg.lookup_keys_dedup: nonzero-compacted change
-    # positions + log-shift forward fill). Bit-identical slots; measured
-    # verdict in PERF_NOTES.md round 3.
-    acc_pallas: bool = False          # per-frame accumulators as ONE
-    # lane-packed Pallas row-RMW pass (all 5 fields per sample in a single
-    # VMEM-resident RMW, ops/pallas/scatter_add.scatter_add_multi) instead
-    # of 5 XLA scatter-adds. Requires grid capacity <= ~600k voxels (1171
-    # blocks) for VMEM residency; silently falls back to "fields" beyond
-    # (fusion.acc_mode). Measured verdict in PERF_NOTES.md round 3.
+    # positions + log-shift forward fill). Bit-identical slots; not yet
+    # measured on the H100.
     acc_rows8: bool = False           # per-frame accumulators as ONE
     # [nvox, 8]-row array updated by a single [N, 8]-row scatter-add
-    # (payload w, wd, wn_x, wn_y, wn_z + 3 pad lanes) instead of 5
+    # (payload w, wd, wn_x, wn_y, wn_z + 3 pad columns) instead of 5
     # separate [N] scatter-adds. Identical sums (same adds, same slot
-    # order; equality-tested). MEASURED IN SITU SLOWER at the real
-    # full-capacity destination (103.6 vs 77.3 ms/frame on the v5e VGA
-    # scene) despite winning 2.3x at a VMEM-scale micro destination —
-    # the [*, 8] minor-axis payload pays the same bad-layout path as
-    # round 1's [N, 5] attempt. Kept OFF; see PERF_NOTES.md round 3.
+    # order; equality-tested). Kept off: the earlier accelerator measured
+    # it slower at the full-capacity destination; not yet measured on the
+    # H100.
     fusion_stride: int = 1            # integrate every s-th pixel's ray walk
     # (rows and columns). The reference fuses every pixel (parity default 1);
     # stride 2 quarters the scatter traffic while the ~2-4 mm pixel
@@ -109,13 +99,12 @@ class TrackerConfig:
     packed_row_gather: bool = True    # gather (dist, weight, grad) per GN
     # iteration as ONE [*, 8]-row gather from a per-frame packed field
     # array instead of 5 element gathers. Identical math (bit-equal
-    # linearization, tests/test_tracker.py); measured on the v5e: dense
-    # VGA tracking 59.3 -> 39.1 ms (PERF_NOTES.md round 3).
+    # linearization, tests/test_tracker.py); not yet measured on the H100.
     compact_cap_frac: float = 0.5     # depth-valid pixels are compacted once
     # before the GN loop (z-gating is pose-independent) into a buffer of
     # this fraction of the strided pixel count; frames with more valid
     # pixels fall back to the full-width loop (lax.cond). Every GN
-    # iteration's 6 random-HBM passes then scale with the frame's valid
+    # iteration's 6 random-access passes then scale with the frame's valid
     # count. 0 disables. Exact semantics either way.
 
 

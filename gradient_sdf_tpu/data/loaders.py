@@ -23,18 +23,23 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from ..utils import tumio
+from ..utils import png, tumio
 
 
 def _imread(path: str) -> np.ndarray:
-    # native zlib-based PNG decoder first (no PIL/GIL overhead); PIL covers
-    # everything else (JPEG rgb in Redwood, palette PNGs, ...)
+    # native zlib-based PNG decoder first (no GIL held while inflating),
+    # then the stdlib codec; PIL is imported only for formats neither
+    # handles (JPEG rgb in Redwood, palette or interlaced PNGs, ...)
     if path.endswith(".png"):
         from .. import native
 
         arr = native.decode_png(path)
         if arr is not None:
             return arr
+        try:
+            return png.read_png(path)
+        except png.UnsupportedPng:
+            pass
     from PIL import Image
 
     with Image.open(path) as im:
@@ -146,8 +151,8 @@ class ImageLoader:
         """Iterate frames with decode-ahead: the file list is enumerated up
         front and handed to the native threaded prefetcher (fallback:
         synchronous decode), so the NEXT frames' PNG inflate overlaps this
-        frame's consumption — on the TPU app loop, frame decode leaves the
-        per-frame critical path entirely."""
+        frame's consumption, and frame decode leaves the app loop's
+        per-frame critical path."""
         specs = self._frame_specs(first, last)
         paths = []
         for _, _, cp, dp in specs:

@@ -188,7 +188,8 @@ def render_depth_boxes(
     v = (jnp.arange(height, dtype=jnp.float32) - cy) / fy
     cu, cv = jnp.meshgrid(u, v)
     d_cam = jnp.stack([cu, cv, jnp.ones_like(cu)], axis=-1)    # [H,W,3]
-    d_w = jnp.einsum("ij,hwj->hwi", jnp.asarray(R, jnp.float32), d_cam)
+    d_w = jnp.einsum("ij,hwj->hwi", jnp.asarray(R, jnp.float32), d_cam,
+                     precision=jax.lax.Precision.HIGHEST)
     d_safe = jnp.where(jnp.abs(d_w) < 1e-12, 1e-12, d_w)
     inv = 1.0 / d_safe                                         # [H,W,3]
     o = jnp.asarray(t, jnp.float32)

@@ -101,7 +101,8 @@ def _per_frame_terms(problem: BAProblem, x: jax.Array, Ri, ti, img, vis_i,
     K = problem.K
     fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
     Rt = Ri.T
-    p = (x - ti) @ Ri  # = R^T (x - t) rowwise
+    p = jnp.matmul(x - ti, Ri,  # = R^T (x - t) rowwise
+                   precision=jax.lax.Precision.HIGHEST)
     z = p[..., 2]
     safe_z = jnp.where(jnp.abs(z) > 1e-12, z, 1.0)
     z_inv = 1.0 / safe_z
@@ -181,8 +182,10 @@ def solve_dist(problem: BAProblem, state: BAState, gcfg: GridConfig,
         if trunc_gate:  # TRUNC_L2 intensity gate (reference :364-365)
             valid = valid & (jnp.max(A * A, axis=-1) <= lambda_sq)
         # Jd = dI_dp @ (-R^T g)  (unnormalized g, :181)
-        Rtg = -(problem.grad @ Ri)  # rowwise R^T g
-        Jd = jnp.einsum("vcd,vd->vc", dI_dp, Rtg)
+        Rtg = -jnp.matmul(problem.grad, Ri,  # rowwise R^T g
+                          precision=jax.lax.Precision.HIGHEST)
+        Jd = jnp.einsum("vcd,vd->vc", dI_dp, Rtg,
+                        precision=jax.lax.Precision.HIGHEST)
         w = valid.astype(jnp.float32)[:, None]
         return (
             n + w[:, 0],
@@ -221,9 +224,11 @@ def _make_frame_AJ(problem: BAProblem, x: jax.Array, gate: jax.Array, pcfg):
         if trunc_gate:  # TRUNC_L2 intensity gate (reference :435, :542)
             valid = valid & (jnp.max(A * A, axis=-1) <= lambda_sq)
         # Jc = [-dI_dp @ R^T | dI_dp @ skew(p)]  -> [V, 3, 6]
-        left = -jnp.einsum("vcd,ed->vce", dI_dp, Ri)  # dI_dp @ R^T
+        left = -jnp.einsum("vcd,ed->vce", dI_dp, Ri,  # dI_dp @ R^T
+                           precision=jax.lax.Precision.HIGHEST)
         sk = se3.hat(p)  # [V,3,3]
-        right = jnp.einsum("vcd,vde->vce", dI_dp, sk)
+        right = jnp.einsum("vcd,vde->vce", dI_dp, sk,
+                           precision=jax.lax.Precision.HIGHEST)
         Jc = jnp.concatenate([left, right], axis=-1)
         return A, Jc, valid
 

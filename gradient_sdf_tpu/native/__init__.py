@@ -84,7 +84,7 @@ def available() -> bool:
 
 def decode_png(path: str) -> Optional[np.ndarray]:
     """Decode a PNG file. Returns [H,W] or [H,W,3] uint8/uint16 array, or
-    None (unsupported format -> caller falls back to PIL)."""
+    None (unsupported format -> caller falls back to utils.png)."""
     lib = _load()
     if lib is None:
         return None

@@ -1,7 +1,7 @@
 // Native runtime components for gradient_sdf_tpu.
 //
 // The reference implementation is a C++17 codebase end to end; the compute
-// path of this framework lives on the TPU (JAX/XLA), and this library
+// path of this framework lives on the accelerator (JAX/XLA), and this library
 // provides native equivalents for the *host runtime* around it — the parts
 // the reference does with OpenCV/STL on the CPU:
 //

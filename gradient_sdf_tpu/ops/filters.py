@@ -22,7 +22,7 @@ def median_blur(img: jax.Array, ksize: int = 5) -> jax.Array:
 
     Builds the k^2 shifted views along a new axis and takes the middle order
     statistic with jnp.sort — k^2 is tiny (25) so this is a bandwidth-bound
-    VPU op, no data-dependent control flow.
+    elementwise op, no data-dependent control flow.
     """
     r = ksize // 2
     padded = jnp.pad(img, r, mode="reflect")

@@ -20,8 +20,8 @@ fused, jit-compiled pass with no data-dependent control flow:
      order-independent, so it is parallel-safe without the reference's
      `omp critical` (`MapGradPixelSdfOmp.cpp:112-121`).
 
-Adaptive work via **valid-ray compaction** (round 2): the frame cost is
-dominated by the ~6 random-HBM passes (1 slot lookup + 5 scatter-adds) over
+Adaptive work via **valid-ray compaction**: the frame cost is
+dominated by the ~6 random-access passes (1 slot lookup + 5 scatter-adds) over
 all H*W*K samples, yet typically only 30-70% of pixels survive the gates.
 `fuse_frame` therefore compacts the valid pixel indices (`jnp.nonzero`) and
 integrates them in fixed-size chunks of `FusionConfig.compact_chunk_rays`
@@ -32,11 +32,10 @@ running weighted mean is linear in the accumulators) and chunk-ordered
 allocation assigns block slots in the same (pixel, k) candidate order as a
 single full-frame pass.
 
-TPU-compiler notes: all coordinate math is carried as separate x/y/z
-component arrays of shape [N] / [N, K] — [N, 3]-shaped math with a
-3-wide minor axis sends the TPU backend's compile time from seconds to
-minutes. Block keys are packed ONCE per sample and reused for both
-allocation (claim insert) and the scatter lookup.
+Layout: all coordinate math is carried as separate x/y/z component arrays
+of shape [N] / [N, K] rather than [N, 3] arrays with a 3-wide minor axis.
+Block keys are packed ONCE per sample and reused for both allocation
+(claim insert) and the scatter lookup.
 
 The per-voxel *visibility* bitmask (reference `vis_`,
 `MapGradPixelSdf.h:70`, consumed by PhotoBA/ColorUpsampler) is kept as a
@@ -273,53 +272,11 @@ def _alloc_slots(grid: vg.VoxelGrid, s: FrameSamples, gcfg: GridConfig,
     return grid, lin, ok
 
 
-# VMEM residency bound for the Pallas one-pass accumulator: 25 dests per
-# 128-lane f32 row = 20.5 B/destination
-PALLAS_MAX_DESTS = 600 * 1024
-
-
-def acc_mode(gcfg: GridConfig, fcfg: FusionConfig) -> str:
-    """Which per-frame accumulator formulation fusion uses (measured
-    trade-offs in PERF_NOTES.md round 3):
-      * "fields": five separate [nvox] scatter-adds (round-1/2 default);
-      * "rows8": ONE [N, 8]-row XLA scatter-add (kept, measured slower);
-      * "pallas": ONE lane-packed Pallas row-RMW pass for all five fields
-        — requires the whole capacity to fit the VMEM-resident
-        destination (<= ~600k voxels = 1171 blocks of 8^3)."""
-    nvox = gcfg.num_blocks * gcfg.voxels_per_block
-    if getattr(fcfg, "acc_pallas", False):
-        if nvox <= PALLAS_MAX_DESTS:
-            return "pallas"
-        # loud one-time fallback: a perf experiment requesting acc_pallas at
-        # a larger capacity would otherwise silently measure the default path
-        key = (gcfg.num_blocks, gcfg.voxels_per_block)
-        if key not in _PALLAS_FALLBACK_WARNED:
-            _PALLAS_FALLBACK_WARNED.add(key)
-            import warnings
-
-            warnings.warn(
-                f"acc_pallas requested but capacity {nvox} voxels exceeds "
-                f"PALLAS_MAX_DESTS={PALLAS_MAX_DESTS} (VMEM residency bound); "
-                f"falling back to the 'fields' accumulator", RuntimeWarning)
-        return "fields"
-    if getattr(fcfg, "acc_rows8", False):
-        return "rows8"
-    return "fields"
-
-
-_PALLAS_FALLBACK_WARNED: set = set()
-
-
 def _zero_accs(grid: vg.VoxelGrid, accumulate_gradients: bool,
                mode: str = "fields"):
     """Fresh flat per-frame accumulators (w, wd, wn_x, wn_y, wn_z): five
-    [nvox] arrays, ONE [nvox, 8] row array (rows8), or the lane-packed
-    Pallas accumulator (pallas)."""
+    [nvox] arrays, or ONE [nvox, 8] row array (rows8)."""
     nvox = grid.num_blocks * grid.voxels_per_block
-    if mode == "pallas":
-        from .pallas.scatter_add import LANES, multi_rows
-
-        return (jnp.zeros((multi_rows(nvox), LANES), jnp.float32),)
     if mode == "rows8":
         return (jnp.zeros((nvox, 8), jnp.float32),)
     z = jnp.zeros((nvox,), jnp.float32)
@@ -327,28 +284,17 @@ def _zero_accs(grid: vg.VoxelGrid, accumulate_gradients: bool,
     return (z, z) + (z,) * n_grad
 
 
-def _scatter_samples(accs, lin, s: FrameSamples, mode: str = "fields",
-                     nvox: int = 0):
+def _scatter_samples(accs, lin, s: FrameSamples, mode: str = "fields"):
     """Scatter one batch's contributions into the frame accumulators.
 
-    Three formulations (identical sums up to f32 add order; equality
-    tests in tests/test_fusion.py; measured trade-offs in PERF_NOTES.md):
+    Two formulations (identical sums up to f32 add order; equality tests in
+    tests/test_fusion.py):
       * "fields": five separate 1-channel scatter-adds;
-      * "rows8": ONE [N, 8]-row XLA scatter-add;
-      * "pallas": ONE Pallas row-RMW pass accumulating all five fields
-        into the VMEM-resident lane-packed destination (carry-in across
-        chunks via the aliased accumulator).
+      * "rows8": ONE [N, 8]-row scatter-add.
     Accumulators are *carried* across compacted chunks so the dense
-    zero-init/merge passes run once per frame, not once per chunk."""
-    if mode == "pallas":
-        import jax as _jax
-
-        from .pallas.scatter_add import scatter_add_multi
-
-        payload = jnp.stack([s.w, s.wd, s.wn_x, s.wn_y, s.wn_z], axis=-1)
-        return (scatter_add_multi(
-            lin, payload, nvox, acc=accs[0],
-            interpret=_jax.default_backend() != "tpu"),)
+    zero-init/merge passes run once per frame, not once per chunk. On a GPU
+    the scatter-adds are atomic, so float32 sums are taken in no fixed
+    order."""
     if mode == "rows8":
         z = jnp.zeros_like(s.w)
         payload = jnp.stack(
@@ -365,13 +311,8 @@ def _merge_accumulators(grid: vg.VoxelGrid, accs, accumulate_gradients: bool):
     — the order-independent fixed point of the reference's sequential
     running mean (MapGradPixelSdf.cpp:108-116)."""
     shape = grid.dist.shape
-    nvox = grid.num_blocks * grid.voxels_per_block
-    if len(accs) == 1:  # rows8/pallas: unpack the lane-packed accumulator
+    if len(accs) == 1:  # rows8: unpack the row accumulator
         a = accs[0]
-        if a.shape[0] != nvox:  # pallas packed [rows, 128]
-            from .pallas.scatter_add import unpack_multi
-
-            a = unpack_multi(a, nvox, 5)
         accs = (a[:, 0], a[:, 1], a[:, 2], a[:, 3], a[:, 4])
     w_acc = accs[0].reshape(shape)
     wd_acc = accs[1].reshape(shape)
@@ -407,9 +348,8 @@ def _integrate_samples(grid, s: FrameSamples, gcfg, accumulate_gradients,
                        vis, kf_slot, mode="fields", walk_k=0):
     """Allocate + scatter + merge one batch of samples (and mark vis)."""
     grid, lin, ok = _alloc_slots(grid, s, gcfg, walk_k)
-    nvox = grid.num_blocks * grid.voxels_per_block
     accs = _zero_accs(grid, accumulate_gradients, mode)
-    accs = _scatter_samples(accs, lin, s, mode, nvox)
+    accs = _scatter_samples(accs, lin, s, mode)
     grid = _merge_accumulators(grid, accs, accumulate_gradients)
 
     if vis is not None:
@@ -467,7 +407,9 @@ def fuse_frame(
         # expected valid count scales ~1/stride^2; shrink the work quantum
         chunk = max(8 * 1024, chunk // (stride * stride))
 
-    mode = acc_mode(gcfg, fcfg)
+    # per-frame accumulator layout: five [nvox] fields, or one [nvox, 8]
+    # row array (FusionConfig.acc_rows8)
+    mode = "rows8" if fcfg.acc_rows8 else "fields"
     walk_k = ((2 * int(fcfg.trunc_voxels) + 1)
               if getattr(fcfg, "dedup_lookup", False) else 0)
     if chunk <= 0 or chunk >= n_rays:
@@ -507,7 +449,7 @@ def fuse_frame(
         rc = _gather_ray_chunk(rays, idx, start, chunk, count)
         s = _ray_samples(rc, R, t, gcfg, fcfg)
         g, lin, ok = _alloc_slots(g, s, gcfg, walk_k)
-        accs = _scatter_samples(accs, lin, s, mode, nvox)
+        accs = _scatter_samples(accs, lin, s, mode)
         if has_vis:
             touched = touched.at[lin].max(ok.astype(jnp.int32), mode="drop")
         return start + chunk, g, accs, touched

@@ -6,8 +6,10 @@ per-pixel unit rays nbar = (x0, y0, 1)/|.|, a per-pixel 3x3 normal-equation
 matrix M = sum_window nbar nbar^T precomputed once and inverted analytically
 (adjugate), then per frame b = sum_window nbar / z and n = M^{-1} b,
 normalized. Box sums are unnormalized box filters realized as two banded
-matmuls on the MXU (see box_sum_matrix), so the whole per-frame pass is two
-small matmuls plus fused VPU elementwise ops.
+matmuls (see box_sum_matrix), so the whole per-frame pass is two small
+matmuls plus fused elementwise ops. M is ill-conditioned over an 11-pixel
+window (condition number ~4e4 at VGA), so float32 normals carry ~1e-3
+error against float64 whatever the device.
 
 Border handling matches OpenCV's default BORDER_REFLECT_101 via jnp.pad
 (mode="reflect").
@@ -25,9 +27,8 @@ import numpy as np
 def box_sum_matrix(n: int, window: int) -> np.ndarray:
     """[n, n] matrix S with (S^T x)_i = sum of x over the window around i,
     BORDER_REFLECT_101 folded in. Box filtering then becomes two small
-    matmuls on the MXU — the fastest *and* fastest-compiling formulation on
-    TPU (cumsum and reduce_window both cost the TPU compiler minutes at
-    these shapes)."""
+    matmuls. (A summed-area formulation would be O(HW); which is faster on
+    the GPU is not yet measured.)"""
     r = window // 2
     S = np.zeros((n, n), dtype=np.float32)
     for i in range(n):
@@ -46,7 +47,7 @@ def box_filter(img: jax.Array, window: int, Sh=None, Sw=None) -> jax.Array:
     (cv::boxFilter(..., normalize=false), BORDER_REFLECT_101).
 
     With precomputed banded matrices Sh [H,H], Sw [W,W] (box_sum_matrix),
-    this is (Sh^T @ img) @ Sw on the MXU; without them it falls back to a
+    this is (Sh^T @ img) @ Sw; without them it falls back to a
     general formulation."""
     if Sh is not None and Sw is not None:
         v = jnp.matmul(Sh.T, img, precision=jax.lax.Precision.HIGHEST)

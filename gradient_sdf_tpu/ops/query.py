@@ -14,7 +14,8 @@ corners exist. We implement the *correct* transform math (the reference's
 non-OMP fusion has a double-applied transform bug at `MapPixelSdf.cpp:160`
 that we do not replicate — see SURVEY.md §2 row 6).
 
-All queries are pure gathers + VPU math: differentiable, vmap/shard-friendly.
+All queries are pure gathers + elementwise math: differentiable,
+vmap/shard-friendly.
 """
 
 from __future__ import annotations
@@ -40,8 +41,7 @@ def tsdf_grad(grid: vg.VoxelGrid, points: jax.Array, gcfg: GridConfig,
 
     dist = vg.flat_field(grid.dist)[lin]
     weight = vg.flat_field(grid.weight)[lin]
-    # component gathers (a single [., 3] gather hits the 3-wide-minor-axis
-    # slow path on TPU)
+    # component gathers, one per scalar field
     gx = vg.flat_field(grid.grad_x)[lin]
     gy = vg.flat_field(grid.grad_y)[lin]
     gz = vg.flat_field(grid.grad_z)[lin]

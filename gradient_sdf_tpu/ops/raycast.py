@@ -1,22 +1,21 @@
 """Sphere-tracing raycaster over the semi-implicit gradient-SDF.
 
 The reference has no renderer (tracking queries the SDF at backprojected
-depth pixels instead); this module adds the TPU-native rendering path the
-north star requires: depth/normal images rendered by sphere tracing the
-block-sparse gradient-SDF, fully vectorized over rays. It is the Mrays/s
-benchmark kernel and the basis of rendered-depth parity checks against
-fused geometry.
+depth pixels instead); this module adds a rendering path: depth/normal
+images rendered by sphere tracing the block-sparse gradient-SDF, fully
+vectorized over rays. It is the Mrays/s benchmark kernel and the basis of
+rendered-depth parity checks against fused geometry.
 
-Performance design (measured rationale in PERF_NOTES.md):
+Performance design (measured on the earlier accelerator; not yet
+re-measured on the GPU):
 
   * Per march step exactly TWO random gathers: a transient combined
     directory (slot >= 0 allocated; -1 unallocated-but-coarse-occupied;
     -2 coarse-empty — the coarse occupancy mip is broadcast-upsampled into
     the directory image once per render, no per-step third gather) and a
     transient "march field" (voxel dist where observed else +inf).
-  * All per-ray state is carried as SEPARATE x/y/z component arrays —
-    [N, 3]-minor-axis math wastes 125/128 lanes per op on TPU and measurably
-    dominated the march loop (PERF_NOTES.md).
+  * All per-ray state is carried as SEPARATE x/y/z component arrays
+    rather than [N, 3] arrays with a 3-wide minor axis.
   * March values are raw voxel `dist` — CONSTANT within each voxel — so
     sign changes can only happen at voxel boundaries and the step is floored
     by the DDA distance to the next voxel boundary (never skips a crossing);
@@ -270,22 +269,19 @@ def raycast(
     `s_lo`/`s_hi` optionally bound each ray's march window (from a depth
     prior); they default to the scalar [s_min, s_max]. The burst of
     `burst_steps` runs pre-compacted to N/2 when per-ray windows exist
-    (window-skipped rays never occupy march lanes; cap 3N/8); surviving rays then
+    (window-skipped rays never occupy march slots; cap 3N/8); surviving rays then
     continue in compacted buffers of at most N/divisor rays per entry of
     `compact_divisors` — each round actually runs at the TIGHTEST fitting
     capacity on a {N/divisor, N/8, full-width} ladder (lax.switch), so an
     overflowing round degrades by one ladder rung rather than dropping
     rays or jumping straight to a full-width march.
 
-    Schedule default: a single straggler round at divisor 64. Round-4
-    capacity sweep (one v5e, from-scratch VGA, ALL bit-identical depth
-    images): N/8 114 ms, N/16 108, N/20 106, N/32-N/64 102-103 ms
-    (plateau) — the round's cost is its fixed lane width, and this
-    scene's post-burst survivors fit N/64. The old (8, 64) TWO-round
-    schedule was worse than either (122 ms): a second round pays its own
-    re-compaction; one narrow round with a ladder escape does not.
-    (6, 48) was 131.5 ms; burst 16 changed bracket choices on tail rays,
-    burst 12 stays the default."""
+    Schedule default: a single straggler round at divisor 64, chosen by a
+    capacity sweep on the earlier accelerator (all schedules gave
+    bit-identical depth images; the round's cost is its fixed width, and
+    the scene's post-burst survivors fit N/64). A second straggler round
+    pays its own re-compaction. Burst 16 changed bracket choices on tail
+    rays, so burst 12 stays the default. Not yet re-swept on the GPU."""
     n = origins.shape[0]
     if s_lo is None:
         s0 = jnp.full((n,), s_min, jnp.float32)
@@ -330,16 +326,13 @@ def raycast(
         if div <= 1:
             state = _march(march, dir2, rays, state, steps, gcfg, fcfg)
             continue
-        # CAPACITY LADDER (round 4): the round runs at the TIGHTEST
-        # fitting capacity among {n/div, n/8} via lax.switch — per-step
-        # cost is the buffer's FIXED lane width, not the live-ray count
-        # (the while_loop early-exits in steps, not lanes), so narrow
-        # survivor sets should march in narrow buffers. Measured sweep
-        # (one v5e, from-scratch VGA, bit-identical depth images):
-        # n/8 114 ms, n/16 108, n/20 106, n/32-n/64 102-103 (plateau) —
-        # the ladder takes the n/64 win when survivors allow and degrades
-        # to n/8 (the former fixed default) instead of a full-width march
-        # when they don't; full width remains the final escape.
+        # CAPACITY LADDER: the round runs at the TIGHTEST fitting capacity
+        # among {n/div, n/8} via lax.switch — per-step cost is the buffer's
+        # FIXED width, not the live-ray count (the while_loop early-exits
+        # in steps, not rays), so narrow survivor sets should march in
+        # narrow buffers; it degrades to n/8 instead of a full-width march
+        # when survivors overflow, and full width remains the final
+        # escape.
         ladder = sorted({max(1, int(n / d)) for d in (div, 8.0) if d > 1})
         ladder = [c for c in ladder if c < n] or [max(1, int(n / div))]
         alive = ~state.found & (state.s <= rays.s_end)
@@ -417,7 +410,7 @@ def raycast(
         classic TSDF crossing interpolation (linear between the last
         free-space dist and the first non-negative dist, KinectFusion-style)
         comes for free; each optional bisection round halves the bracket
-        AND refreshes the endpoint values. Measured (PERF_NOTES.md): the
+        AND refreshes the endpoint values. Measured: the
         secant at bisect_steps=2 beats plain midpoint at bisect_steps=5,
         saving 6 compacted march-field gathers per render; a Newton step on
         the SEMI-IMPLICIT field instead was 3x worse (its grad_scale-biased
@@ -544,8 +537,7 @@ def raycast(
 def block_raster_windows(grid: vg.VoxelGrid, K, R, t,
                          width: int, height: int, gcfg: GridConfig,
                          *, tile: int = 16, max_span: int = 4,
-                         active_cap: int = 4096,
-                         occlusion_zcap: bool = False):
+                         active_cap: int = 4096):
     """EXACT per-pixel march windows by rasterizing the active blocks.
 
     Every observed zero crossing lies inside an allocated block (fusion
@@ -564,7 +556,7 @@ def block_raster_windows(grid: vg.VoxelGrid, K, R, t,
 
     Returns (s_lo [H*W], s_hi [H*W]) ray-parameter bounds; empty windows
     have s_lo > s_hi. Cost: one dense pass over `active_cap` blocks plus
-    ~3 scatters of active_cap * max_span^2 elements (~1-4 ms) — replaces
+    ~3 scatters of active_cap * max_span^2 elements — replaces
     the stride-prior's low-res MARCH entirely.
     """
     vs = gcfg.voxel_size
@@ -642,44 +634,6 @@ def block_raster_windows(grid: vg.VoxelGrid, K, R, t,
     tiles_lo = jnp.minimum(tiles_lo, glob_lo)
     tiles_hi = jnp.maximum(tiles_hi, glob_hi)
 
-    if occlusion_zcap:
-        # OCCLUSION Z-CAP — probed round 5 and REJECTED AS UNSOUND; kept
-        # ONLY so tools/probe_raycast_occl_zcap.py reproduces the
-        # measurement. NEVER default this on. The idea: a tile whose pixel
-        # square lies entirely inside one block's projected
-        # inscribed-sphere silhouette caps its window at that block's far
-        # range ("first covering surface occludes everything behind").
-        # The flaw: an allocated block's truncation band can clip a corner
-        # or run oblique without blocking all of the tile's rays, so the
-        # cap drops REAL geometry behind silhouettes. Measured on the
-        # bench raycast scene (vs=1 cm, 875 active blocks): 683 of 76,641
-        # hits LOST, depth errors up to 2.4 m, for a ~3% window
-        # tightening (PERF_NOTES.md round 5). Same family as the round-4
-        # raster-hull-fallback reversion: hull geometry without a per-ray
-        # occlusion proof loses coverage exactly at silhouettes.
-        r_in = r / jnp.sqrt(3.0).astype(jnp.float32)  # inscribed sphere
-        ru_in = fx * r_in / (qz_safe + r)
-        rv_in = fy * r_in / (qz_safe + r)
-        ctx0 = jnp.clip(jnp.ceil((u - ru_in) / tile).astype(jnp.int32),
-                        0, WT - 1)
-        ctx1 = jnp.clip(jnp.floor((u + ru_in) / tile).astype(jnp.int32) - 1,
-                        0, WT - 1)
-        cty0 = jnp.clip(jnp.ceil((v - rv_in) / tile).astype(jnp.int32),
-                        0, HT - 1)
-        cty1 = jnp.clip(jnp.floor((v + rv_in) / tile).astype(jnp.int32) - 1,
-                        0, HT - 1)
-        cov = proj & (ctx1 >= ctx0) & (cty1 >= cty0)
-        tyc = cty0[:, None] + ii[None, :]
-        txc = ctx0[:, None] + ii[None, :]
-        oky = cov[:, None] & (tyc <= cty1[:, None])
-        okx = txc <= ctx1[:, None]
-        idx_c = tyc[:, :, None] * WT + txc[:, None, :]
-        okc = oky[:, :, None] & okx[:, None, :]
-        idx_c = jnp.where(okc, idx_c, nt).reshape(-1)
-        tiles_cap = jnp.full((nt,), jnp.inf).at[idx_c].min(
-            hi_s, mode="drop")
-        tiles_hi = jnp.minimum(tiles_hi, tiles_cap)
-
     # tiles -> pixels (empty tile: lo=inf > hi=-inf -> instant miss)
     img_lo = jnp.repeat(jnp.repeat(tiles_lo.reshape(HT, WT), tile, 0),
                         tile, 1)[:height, :width].reshape(-1)
@@ -745,7 +699,6 @@ def render_depth_normal(
     prior_stride: int = 4,
     prior_mode: str = "stride",
     prior_miss_skip: bool = True,
-    prior_occlusion_zcap: bool = False,
     depth_prior: Optional[jax.Array] = None,
     depth_prior_holes: str = "march",
     prior_margin_voxels: Optional[float] = None,
@@ -772,7 +725,7 @@ def render_depth_normal(
     The default is safe against any prior error below the truncation
     distance; frame-to-model loops at tracking frame rates move the
     reprojected surface by a few voxels at most, so 4-6 voxels roughly
-    halves the march probes per ray (measured, PERF_NOTES.md) — rays whose
+    halves the march probes per ray — rays whose
     window misses the moved surface fall back to a miss for that frame.
     `depth_prior_holes` decides prior-hole (depth 0) rays: "march" (default,
     safe) marches them over the full range; "skip" declares them misses —
@@ -795,8 +748,7 @@ def render_depth_normal(
         # sub-coarse-pixel miss heuristic — tiles no block covers are
         # provably empty of observed crossings.
         s_lo, s_hi = block_raster_windows(grid, K, R, t, width, height,
-                                          gcfg,
-                                          occlusion_zcap=prior_occlusion_zcap)
+                                          gcfg)
     elif depth_prior is not None:
         # Prior windows bound every WINDOWED ray to a few probes, so the
         # pre-compacted burst finishes them all and the straggler
@@ -805,11 +757,10 @@ def render_depth_normal(
         # mode). Under holes="march" hole rays march the full [s_min,s_max]
         # range, the rationale doesn't hold, and a sparse prior would push
         # every hole ray into the full-width fallback for the whole
-        # max_steps budget — keep the straggler rounds there. Measured
-        # (one v5e, VGA, 4-voxel margin, holes="skip"):
-        # 89.5 -> 56.4 ms (3.4 -> 5.4 Mrays/s), bit-identical hits/depths
-        # (rays overflowing the burst's 3N/8 compaction cap still fall
-        # back to a full-width march).
+        # max_steps budget — keep the straggler rounds there. Hits and
+        # depths are bit-identical either way (rays overflowing the
+        # burst's 3N/8 compaction cap still fall back to a full-width
+        # march).
         if depth_prior_holes == "skip":
             kw.setdefault("compact_divisors", ())
         sp = (depth_prior / inv_hnorm.reshape(height, width)).reshape(-1)
@@ -830,21 +781,20 @@ def render_depth_normal(
         off = prior_stride // 2
         d_c = d_img[off::prior_stride, off::prior_stride].reshape(-1, 3)
         o_c = o_img[off::prior_stride, off::prior_stride].reshape(-1, 3)
-        # EXACT block-raster windows bound the COARSE pass (round 4): the
+        # EXACT block-raster windows bound the COARSE pass: the
         # coarse pass previously marched its ~75% background rays over the
         # full [s_min, s_max] range just to conclude "miss" — tiles no
         # active block covers are provably empty of observed crossings, so
         # those rays now die instantly, and covered rays march only the
         # covering blocks' ray-parameter hull (~1-2 ms of tiny scatters).
         # Note the asymmetry with the full-res pass: using the same hull
-        # windows there was measured WORSE (PERF_NOTES.md round 3/4 raster
-        # sections — no occlusion in a hull, so full-res silhouette rays
-        # march the whole front-to-back gap), but the coarse pass keeps its
+        # windows there was measured WORSE on the earlier accelerator (no
+        # occlusion in a hull, so full-res silhouette rays march the whole
+        # front-to-back gap), but the coarse pass keeps its
         # own hit-window output, so here the hull only replaces "no bound
         # at all" and cannot lose coverage the stride prior had.
         rw_lo, rw_hi = block_raster_windows(grid, K, R, t, width, height,
-                                            gcfg,
-                                            occlusion_zcap=prior_occlusion_zcap)
+                                            gcfg)
         rw_lo_i = rw_lo.reshape(height, width)
         rw_hi_i = rw_hi.reshape(height, width)
         rw_lo_c = rw_lo_i[off::prior_stride, off::prior_stride].reshape(-1)
@@ -858,11 +808,10 @@ def render_depth_normal(
         if prior_miss_skip:
             # all-miss neighborhood -> empty window (ray never marches).
             # Replacing this heuristic with the pixel's raster hull window
-            # was MEASURED WORSE AND less consistent (round 4, one v5e:
-            # 116 -> 188 ms — hull windows have no occlusion, so
-            # silhouette-adjacent rays march the whole front-to-back gap
-            # and dominate the straggler rounds; bracket artifacts up to
-            # 0.56 m appeared where hulls start behind the first sheet).
+            # was measured slower on the earlier accelerator (hull windows
+            # have no occlusion, so silhouette-adjacent rays march the
+            # whole front-to-back gap), and bracket artifacts up to 0.56 m
+            # appeared where hulls start behind the first sheet.
             # prior_mode="raster" remains the exact-coverage option.
             lo_c = jnp.where(anyhit, jnp.maximum(mn - margin, s_min), s_max)
             hi_c = jnp.where(anyhit, jnp.minimum(mx + margin, s_max),

@@ -2,21 +2,19 @@
 
 Replaces the reference's pointer-stable CPU hash map
 (`cpp/include/sdf_tracker/MapGradPixelSdf.h:65-68`:
-`phmap::parallel_node_hash_map<Vec3i, SdfVoxel>`) with a design matched to
-TPU memory behavior: voxels live in dense 8x8x8 blocks stored as
-structure-of-arrays in HBM, and a **dense block directory** — an int32 array
+`phmap::parallel_node_hash_map<Vec3i, SdfVoxel>`) with a design for
+accelerator memory: voxels live in dense 8x8x8 blocks stored as
+structure-of-arrays in device memory, and a **dense block directory** — an int32 array
 over the representable block volume (dir_dim^3, 8 MB at the default 128^3)
 — maps block coordinates to block slots by pure arithmetic + one direct
 gather. Everything — lookup, insertion, scatter updates — is vectorized
 with static shapes, so the whole fusion/tracking pipeline stays inside one
 `jit`.
 
-Design history note: the first TPU design used open-addressing hashing like
-GPU voxel-hashing pipelines do. On TPU that is strictly worse: random
-access costs ~100 ns/element regardless, so 8-probe chains multiply the
-frame's dominant cost by 8, and Mosaic/Pallas offers no vectorized VMEM
-gather to hide the table on-chip ("Cannot do int indexing on TPU"). A
-dense directory does one gather per query, needs no collision handling,
+Design note: open-addressing hashing, as GPU voxel-hashing pipelines use,
+needs a chain of probes per lookup, and random access is the frame's
+dominant cost. A dense directory does one gather per query, needs no
+collision handling,
 and makes insertion a single scatter-min claim — deterministic, no
 atomics/mutexes (contrast `MapGradPixelSdfOmp.cpp:112-121`). Memory is the
 trade: dir_dim^3 * 4 bytes (8 MB covers +-5.1 m at 1 cm voxels; 256^3 =
@@ -28,12 +26,11 @@ block coordinates.
 
 Other differences from the CPU design:
   * CPU: `float` running weighted mean updated sequentially per sample
-    (`MapGradPixelSdf.cpp:108-116`). TPU: commutative per-frame accumulators
-    (sum w, sum w·sdf, sum w·n) merged once — order-independent and exactly
-    equal to the sequential running mean in exact arithmetic.
+    (`MapGradPixelSdf.cpp:108-116`). Here: commutative per-frame
+    accumulators (sum w, sum w·sdf, sum w·n) merged once — order-independent
+    and exactly equal to the sequential running mean in exact arithmetic.
   * Coordinate math is carried as separate x/y/z component arrays in hot
-    paths ([N, 3]-shaped math with a 3-wide minor axis is a TPU
-    compile-time tarpit; see PERF_NOTES.md).
+    paths rather than [N, 3] arrays with a 3-wide minor axis.
 """
 
 from __future__ import annotations
@@ -73,8 +70,8 @@ class VoxelGrid(NamedTuple):
     # see grow_directory)
     oob_samples: jax.Array  # int32 [], sticky out-of-range sample counter
     # block store (SoA), voxel-linearized x-fastest within each block.
-    # gradient components are separate scalar fields: a [.., 3] array forces
-    # 3-wide-minor-axis gathers in the hot queries (PERF_NOTES.md)
+    # gradient components are separate scalar fields: a [.., 3] array would
+    # make the hot queries gather 3-wide rows
     block_coords: jax.Array  # int32 [num_blocks, 3]
     dist: jax.Array          # f32 [num_blocks, B^3]
     weight: jax.Array        # f32 [num_blocks, B^3]

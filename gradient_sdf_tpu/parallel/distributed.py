@@ -4,7 +4,7 @@ The reference has no distributed execution at all (SURVEY.md §2); this is
 the new scale-out entry point: call `init()` once per host process (driven
 by launcher env vars or explicit args), then `global_mesh()` builds the
 (rays, blocks) mesh over all global devices — intra-host collectives ride
-ICI, cross-host traffic DCN.
+NVLink, cross-host traffic the network.
 """
 
 from __future__ import annotations

@@ -8,8 +8,9 @@ RESIDENT-sharded on the block axis with owner-computes semantics
 (`parallel/sharding.py`): each device holds a contiguous shard of block
 slots, fusion contributions are merged into the owner via psum_scatter,
 and queries gather only the fields they touch — grid state is never
-materialized unsharded. Collectives ride ICI within a slice;
-`jax.distributed` extends the same mesh across hosts over DCN.
+materialized unsharded. Collectives ride NVLink between the GPUs of a
+host; `jax.distributed` extends the same mesh across hosts over the
+network.
 """
 
 from __future__ import annotations

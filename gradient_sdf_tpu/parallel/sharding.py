@@ -19,7 +19,7 @@ block_coords, counters) are small and replicated.
     transient full-size accumulator, which is `psum`(rays)-reduced and
     `psum_scatter`(blocks, tiled)-reduced so each device receives exactly
     its block shard's contribution and merges it into its RESIDENT shard —
-    collectives ride ICI. Block-table insertion runs replicated
+    collectives ride NVLink. Block-table insertion runs replicated
     (deterministic claim insert, identical on every device).
 """
 
@@ -498,9 +498,12 @@ def sharded_ba_step(mesh, problem, state, gcfg, pcfg):
             A, Jc, valid = frame_AJ(Ri, ti, img, vis_i)
             w = (valid & (n > 0)).astype(jnp.float32)
             r = A - mean_A
-            b = jax.lax.psum(jnp.einsum("v,vc,vce->e", w, r, Jc), axes)
+            b = jax.lax.psum(
+                jnp.einsum("v,vc,vce->e", w, r, Jc,
+                           precision=jax.lax.Precision.HIGHEST), axes)
             H = jax.lax.psum(
-                jnp.einsum("v,vce,vcf->ef", w * (1.0 - inv_n), Jc, Jc), axes
+                jnp.einsum("v,vce,vcf->ef", w * (1.0 - inv_n), Jc, Jc,
+                           precision=jax.lax.Precision.HIGHEST), axes
             )
             return carry, (H, b)
 

@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group math in JAX.
 
-TPU-native replacement for the reference's Sophus usage (reference
+Replacement for the reference's Sophus usage (reference
 `cpp/include/mat.h:47-66` typedefs `SE3 = Sophus::SE3<float>` etc.).
 Poses are represented as `(R, t)` pairs of `jnp` arrays — a (3,3) rotation
 and a (3,) translation — so every function is trivially `vmap`/`jit`-able
@@ -19,9 +19,10 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# Geometry must be exact float32 even on TPU, where the default matmul
-# precision is bfloat16: a 1e-2 error in a rotation matrix is centimetres at
-# 1 m, far above SDF residual scale. All matrix products here pin HIGHEST.
+# Geometry must be exact float32: an unpinned float32 matmul may run in TF32
+# on a GPU (about 3 decimal digits), and a 1e-3 error in a rotation matrix
+# is millimetres at 1 m, at the SDF residual scale. All matrix products here
+# pin HIGHEST (tests/test_precision.py checks the main path).
 _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 _einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 

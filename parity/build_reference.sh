@@ -16,6 +16,8 @@
 set -e
 HERE="$(cd "$(dirname "$0")" && pwd)"
 REF="${REFERENCE_DIR:-/root/reference/cpp}"
+# exit 3: nothing to build here (callers such as the test suite skip on it)
+[ -d "$REF" ] || { echo "no reference source tree at $REF"; exit 3; }
 if [ "${OMP:-0}" = "1" ]; then
     SRC=/tmp/refomp/cpp
     BUILD="${1:-/tmp/refomp/build/b}"

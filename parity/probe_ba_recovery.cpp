@@ -1,4 +1,4 @@
-// BA-recovery probe (VERDICT r4 item 4): does the reference's OWN
+// BA-recovery probe: does the reference's OWN
 // PhotometricOptimizer demonstrably IMPROVE a reconstruction?
 //
 // The reference app has no way to start BA from known-bad poses (it always

@@ -113,8 +113,8 @@ def main():
                          "formulation-level projective-TSDF bias shared "
                          "with the reference, measured round 5)")
     ap.add_argument("--ba-recovery", dest="ba_recovery", action="store_true",
-                    help="also run the BA-RECOVERY fixture (VERDICT r4 item "
-                         "4): fuse the grayscale world at GROUND-TRUTH "
+                    help="also run the BA-RECOVERY fixture: fuse the "
+                         "grayscale world at GROUND-TRUTH "
                          "poses, hand BOTH implementations' optimizers "
                          "perturbed keyframe poses (via "
                          "parity/probe_ba_recovery.cpp for the reference, "

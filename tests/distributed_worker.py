@@ -122,7 +122,7 @@ def main():
     # shards, (E, g, H) psum over both axes. Gated against the local
     # single-device tracker ON THE SAME MAP (the sharded volume replicated
     # and pulled to host — an independently re-fused map carries reduction-
-    # order fp noise that GN amplifies, see __graft_entry__ round-5 note).
+    # order fp noise that GN amplifies, see __graft_entry__'s tracking note).
     from gradient_sdf_tpu.config import TrackerConfig
     from gradient_sdf_tpu.models import tracker as tracker_mod
     from jax.sharding import PartitionSpec as P

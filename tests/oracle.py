@@ -3,7 +3,7 @@
 Implements the sequential per-sample update loop of
 `MapGradPixelSdf::update` (MapGradPixelSdf.cpp:81-117) — running weighted
 mean, weight accumulation, gradient accumulation, visibility list — against
-which the vectorized/scattered TPU fusion op is checked bit-for-fixed-point.
+which the vectorized/scattered fusion op is checked bit-for-fixed-point.
 """
 
 import numpy as np

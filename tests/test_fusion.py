@@ -342,42 +342,6 @@ def test_rows8_accumulator_matches_default(world, cache):
                                rtol=1e-6, atol=1e-6)
 
 
-def test_pallas_accumulator_matches_default():
-    """acc_pallas (one lane-packed Pallas row-RMW pass for all five fields,
-    interpret mode on CPU) must equal the five-scatter layout, including
-    across compacted chunks (the aliased carry-in)."""
-    import dataclasses
-
-    w2, h2 = 32, 24
-    k2 = np.array([[26.0, 0, 15.5], [0, 26.0, 11.5], [0, 0, 1]], np.float32)
-    gc = GridConfig(voxel_size=0.02, num_blocks=1024)  # <= PALLAS_MAX_DESTS
-    cache2 = normals.build_cache(w2, h2, k2, window=5)
-    world2 = synth.SphereWorld(
-        centers=jnp.asarray([[0.0, 0.0, 0.0]], jnp.float32),
-        radii=jnp.asarray([0.25], jnp.float32),
-    )
-    fc = dataclasses.replace(FCFG, compact_chunk_rays=256)  # multiple chunks
-    fcp = dataclasses.replace(fc, acc_pallas=True)
-    assert fusion.acc_mode(gc, fcp) == "pallas"
-    ref = vg.create(gc)
-    pal = vg.create(gc)
-    for i in range(2):
-        R, t = make_pose(i)
-        depth = synth.render_depth(world2, jnp.asarray(R), jnp.asarray(t),
-                                   k2, w2, h2)
-        ref = fusion.fuse_frame(ref, depth, cache2, jnp.asarray(R),
-                                jnp.asarray(t), gc, fc)
-        pal = fusion.fuse_frame(pal, depth, cache2, jnp.asarray(R),
-                                jnp.asarray(t), gc, fcp)
-    assert int(pal.num_active) == int(ref.num_active)
-    np.testing.assert_allclose(np.asarray(pal.weight), np.asarray(ref.weight),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(pal.dist), np.asarray(ref.dist),
-                               rtol=1e-4, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(pal.grad), np.asarray(ref.grad),
-                               rtol=1e-4, atol=1e-5)
-
-
 def test_dedup_lookup_matches_default(world, cache):
     """dedup_lookup (slots gathered only at per-ray block-key changes,
     forward-filled) must produce bit-identical fused state."""

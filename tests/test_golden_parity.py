@@ -41,8 +41,9 @@ def test_golden_parity_scan3d():
 def test_build_reference_configures():
     """The strongest gate in the repo (the golden harness) must not rot
     silently: the reference build script has to at least CONFIGURE in the
-    default suite even when nobody has built the binary (VERDICT r2 weak
-    #8). CONFIGURE_ONLY=1 stops before compilation (~seconds)."""
+    default suite even when nobody has built the binary. CONFIGURE_ONLY=1
+    stops before compilation (~seconds). Without the reference source tree
+    there is nothing to configure, and the script says so with exit 3."""
     import shutil
 
     if shutil.which("cmake") is None:
@@ -53,6 +54,8 @@ def test_build_reference_configures():
         env=dict(os.environ, CONFIGURE_ONLY="1"),
         capture_output=True, text=True, timeout=300,
     )
+    if r.returncode == 3 and "no reference source tree" in r.stdout:
+        pytest.skip(r.stdout.strip())
     assert r.returncode == 0, (
         f"reference configure failed:\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
     assert "configure OK" in r.stdout

@@ -160,7 +160,7 @@ def test_solve_pose_full_chunk_invariant():
 
 
 def test_solve_pose_full_at_scale_f30_v100k():
-    """VERDICT scale point: F=30, V~=1e5 coupled solve runs memory-bounded
+    """Scale point: F=30, V~=1e5 coupled solve runs memory-bounded
     (chunked; would need ~GBs with a materialized [F,V,3,6])."""
     rng = np.random.RandomState(3)
     F, V = 30, 100_352  # 98 chunks of 1024

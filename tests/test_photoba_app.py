@@ -61,7 +61,7 @@ def test_photoba_end_to_end(synth_dir, tmp_path):
 
 def test_photoba_long_sequence_slot_cap_and_lazy_images(synth_dir, tmp_path,
                                                         capsys):
-    """fr1/desk-scale behavior in miniature (VERDICT r2 item 7): with
+    """fr1/desk-scale behavior in miniature: with
     --keyframe-gap 0 every converged frame is keyframe-eligible, so a
     small --max-recorded-keyframes exercises the visibility slot cap
     (suppression counted + warned, run completes) while images are decoded
